@@ -18,23 +18,20 @@ def run_jit(args):
     """Full optimization over the fully-jitted device step: every
     (loss, grad) evaluation is ONE device program (continuation +
     Newton + IFT adjoint through both states), scipy only orchestrates
-    — the TPU production loop the bench measures per-iteration."""
+    — the device loop the bench measures per-iteration (f64, block
+    Thomas)."""
     import time
 
     import jax
     from scipy.optimize import minimize
 
-    from femo_tpu.config import set_precision
     from femo_tpu.models.motor.model import build_motor_jit_step
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    if on_tpu:
-        set_precision("float32")
     mesh = _imported_mesh(args) if args.msh is not None else None
     step, (dv0, iq0), d = build_motor_jit_step(
         refine=args.refine, em_load_steps=3, mm_newton_iters=3,
         em_newton_iters=3, mesh=mesh,
-        factorization="block_thomas" if on_tpu else "lu")
+        factorization="block_thomas")
     if d.get("bt"):
         print("RCM bandwidth (mm/em):", d["bt"])
 
@@ -63,7 +60,7 @@ def run_jit(args):
     r = minimize(fun_s, x0 * scale, jac=True, method="L-BFGS-B",
                  bounds=bounds, options=dict(maxiter=args.maxiter))
     print("=" * 40)
-    print(f"jit-mode optimization ({'TPU f32' if on_tpu else 'CPU f64'}, "
+    print(f"jit-mode optimization ({jax.devices()[0].platform} f64, "
           f"refine={args.refine}): {len(history)} evaluations")
     print(f"loss: {history[0][0]:.6e} -> {r.fun:.6e}")
     print(f"mean step wall-clock: "
@@ -110,7 +107,7 @@ def main():
     p.add_argument("--jit", action="store_true",
                    help="drive the fully-jitted device opt step "
                         "(build_motor_jit_step) instead of the eager "
-                        "graph — the TPU production loop")
+                        "graph — the device production loop")
     args = p.parse_args()
 
     if args.jit:

@@ -1,10 +1,10 @@
-"""femo_tpu — a TPU-native differentiable finite-element framework for
-PDE-constrained optimization.
+"""femo_tpu — a differentiable finite-element framework in JAX for
+PDE-constrained optimization, run on NVIDIA GPUs.
 
 Capability-equivalent rebuild of RuruX/femo (FEniCSx/CSDL/PETSc based) as an
 idiomatic JAX/XLA/Pallas stack: JAX-traced element kernels, segment-sum
 assembly, device Krylov/Newton solvers, custom_vjp implicit-function-theorem
-adjoints, and SPMD mesh partitioning over TPU device meshes.
+adjoints, and SPMD mesh partitioning over device meshes.
 """
 
 from . import config as _config  # noqa: F401  (enables x64 on import)

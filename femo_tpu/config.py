@@ -7,9 +7,9 @@ single module-level registry with explicit setters, read at trace time.
 Precision policy
 ----------------
 PDE-constrained optimization needs tight gradients (FD-vs-adjoint parity to
-~1e-8, see BASELINE.md).  We therefore default to float64 *accumulation*.  On
-TPU, f64 is emulated by XLA; the hot compute (element kernels, SpMV) can be
-run in f32 with f64 reductions by setting ``compute_dtype``.
+~1e-8, see BASELINE.md).  We therefore default to float64 *accumulation*;
+the hot compute (element kernels, SpMV) can be run in f32 with f64
+reductions by setting ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -69,25 +69,14 @@ def set_precision(dtype: str, compute_dtype: str | None = None) -> None:
     """Set working precision ('float32' or 'float64').
 
     float32 also disables jax x64 mode: otherwise Python-literal promotion
-    (jnp.eye, 0.5 * ..., etc.) silently upcasts kernels to f64, which runs
-    via ~100x-slower emulation on TPU (measured: the motor mesh-motion
-    kernel dropped 21 ms -> sub-ms once literals stopped promoting).
+    (jnp.eye, 0.5 * ..., etc.) silently upcasts kernels to f64.
 
-    float32 also forces Precision.HIGHEST as the default matmul
-    precision: the TPU default is ONE bf16 MXU pass per f32 matmul
-    (2.3e-3 rel err per 128x128 product), which compounds through the
-    assembly/residual dots into a 3-12% motor gradient error — measured
-    on hardware, HIGHEST restores true-f32 gradients (3.1e-2 -> 3.2e-5
-    rel vs the converged f64 oracle, the CPU true-f32 floor being
-    1.1e-5) for +16% step time at refine=2
-    (experiments/motor_tpu_matmul_precision.jsonl).  Gradient quality is
-    the product here (BASELINE.md parity bar), so accuracy wins the
-    trade; pass FEMO_BF16_MATMUL=1 to keep the chip default for
-    throughput experiments."""
-    import os
-
+    Every call sets Precision.HIGHEST as the default matmul precision, so
+    no float32 product runs in a reduced-precision mode (TF32 on the
+    GPU, ~5e-4 rel err per product), which compounds through the
+    assembly/residual dots into a percent-level motor gradient error.
+    Gradient quality is the product here (BASELINE.md parity bar)."""
     config.dtype = dtype
     config.compute_dtype = compute_dtype or dtype
     jax.config.update("jax_enable_x64", dtype == "float64")
-    if dtype == "float32" and not os.environ.get("FEMO_BF16_MATMUL"):
-        jax.config.update("jax_default_matmul_precision", "highest")
+    jax.config.update("jax_default_matmul_precision", "highest")

@@ -1,6 +1,6 @@
 """Reference finite elements: shape-function tabulation and dof layout.
 
-TPU-native replacement for Basix tabulation (SURVEY.md N3; reference uses
+JAX replacement for Basix tabulation (SURVEY.md N3; reference uses
 `basix`/`dolfinx.fem.FunctionSpace`, e.g. /root/reference/examples/
 beam_thickness_opt/run_thickness_opt_cantilever_beam.py:101-104 for Hermite).
 

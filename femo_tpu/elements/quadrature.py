@@ -1,6 +1,6 @@
 """Quadrature rules on reference cells.
 
-TPU-native analogue of the Basix quadrature tables used implicitly by every
+JAX analogue of the Basix quadrature tables used implicitly by every
 FFCx-compiled kernel in the reference (SURVEY.md N3).  Rules are computed
 host-side with numpy once and baked into jitted kernels as constants.
 

@@ -1,6 +1,6 @@
 """Composite (multi-field) implicit states: block residuals and Jacobians.
 
-TPU-native replacement for mixed elements (the reference's RM shell uses a
+JAX replacement for mixed elements (the reference's RM shell uses a
 basix mixed CG2/CG1 element via shell_analysis_fenicsx,
 /root/reference/examples/test_shell_m3l/shell_pde.py:219-235).  Instead of a
 monolithic mixed element, a CompositeState concatenates independent fields

@@ -1,6 +1,6 @@
 """Form language: quadrature-point values, operators, and form definitions.
 
-TPU-native replacement for UFL + FFCx codegen (SURVEY.md N1, N11).  Instead
+JAX replacement for UFL + FFCx codegen (SURVEY.md N1, N11).  Instead
 of a symbolic form compiler, integrands are plain Python functions evaluated
 *per quadrature point* on JAX values — the user's math IS the traced kernel.
 Derivatives that UFL obtained symbolically (`ufl.derivative`,

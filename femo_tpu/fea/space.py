@@ -1,6 +1,6 @@
 """Function spaces, dofmaps, and Functions.
 
-TPU-native replacement for `dolfinx.fem.FunctionSpace` / `Function`
+JAX replacement for `dolfinx.fem.FunctionSpace` / `Function`
 (SURVEY.md N2/N3).  A FunctionSpace is: an Element + a host-built dofmap
 (cell -> global dof indices, one int32 array, static shape) + dof coordinates
 for boundary-condition location and interpolation.  A Function is a named

@@ -1,6 +1,6 @@
 """Implicit-function-theorem adjoint around PDE solves.
 
-TPU-native replacement for the reference's CSDL ``CustomImplicitOperation``
+JAX replacement for the reference's CSDL ``CustomImplicitOperation``
 (StateOperation, /root/reference/femo/csdl_opt/state_model.py:52-218): instead
 of a class with evaluate_residuals / compute_derivatives /
 apply_inverse_jacobian methods, the whole implicit-function theorem is a
@@ -166,9 +166,9 @@ def implicit_solve_dense_jit(residual_fn: Callable, jac_dense_fn: Callable,
                              load_steps: int = 1,
                              scale_inputs: Callable | None = None,
                              factorization: str = "lu"):
-    """Fully-jittable implicit solve with dense LU on the MXU.
+    """Fully-jittable implicit solve with dense LU on the device.
 
-    The TPU-native MUMPS replacement for small/medium systems: the
+    The MUMPS replacement for small/medium systems: the
     BC-constrained Jacobian is densified and LU-factored on device; the
     factorization from the last Newton step is saved in the custom_vjp
     residuals and reused for the adjoint transpose solve (reference caches
@@ -184,9 +184,8 @@ def implicit_solve_dense_jit(residual_fn: Callable, jac_dense_fn: Callable,
     adjoint uses only the final-step factorization, as the IFT requires.
 
     factorization: "lu" (stable, sequential triangular solves) or "inv"
-    (explicit inverse; solves become matvecs riding the MXU — faster on TPU
-    for small/medium well-conditioned systems, at ~1 ulp-of-cond extra
-    error).
+    (explicit inverse; solves become dense matvecs, at ~1 ulp-of-cond
+    extra error).
     """
 
     def _default_scale(inputs, s):
@@ -224,7 +223,7 @@ def implicit_solve_dense_jit(residual_fn: Callable, jac_dense_fn: Callable,
 
         # fori_loop keeps ONE traced copy of the assembly+LU body instead of
         # load_steps*newton_iters unrolled copies — the compile-time lever
-        # that makes the jitted continuation practical on TPU
+        # that makes the jitted continuation practical
         def body(k, u):
             s = (k // newton_iters + 1).astype(u.dtype) / load_steps
             p = inputs if load_steps == 1 else scale(inputs, s)
@@ -334,10 +333,9 @@ def implicit_solve_bt_jit(residual_fn: Callable, jac_blocks_fn: Callable,
     latency-optimal choice when nb is large, see
     BlockTridiagonalMatrix.factor_cr).
 
-    sweeps: "scan" (lax.scan triangular sweeps) or "pallas" (VMEM-
-    carry Pallas kernels, ops/pallas_bt.py — f32 Thomas only; ~2-3%
-    end-to-end on the fused motor step, measured numbers in that
-    module's docstring).
+    sweeps: "scan" (lax.scan triangular sweeps) or "pallas" (single-
+    program Pallas-Triton GPU kernels, ops/pallas_bt.py — f32 Thomas
+    only).
 
     adjoint: "refactor" re-assembles and transpose-factors the Jacobian at
     the converged state (exact IFT for any residual).  "reuse_symmetric"
@@ -365,10 +363,8 @@ def implicit_solve_bt_jit(residual_fn: Callable, jac_blocks_fn: Callable,
     Only the residual is assembled fresh, so the iteration still targets
     the true root; the per-step contraction drops from quadratic to the
     frozen-J linear rate, which matters only through the fixed-iteration-
-    count band.  Measured motivation: the refine=1 motor step's latency
-    is assembly-dominated (mm fill 3.7 ms x 7, experiments/
-    motor_stage_latency.jsonl), not scan-dominated.  Requires
-    refactor_every > 1.
+    count band.  It pays where the Jacobian fill, not the factor scan,
+    dominates an iteration.  Requires refactor_every > 1.
     """
 
     def _default_scale(inputs, s):
@@ -380,7 +376,7 @@ def implicit_solve_bt_jit(residual_fn: Callable, jac_blocks_fn: Callable,
     if pallas_sweeps and cr:
         raise ValueError("sweeps='pallas' requires factor_method='thomas'")
     if pallas_sweeps and pcg_iters == 0 and config.jdtype == jnp.float64:
-        # the pallas sweeps run in f32 (Mosaic has no f64); without the
+        # the pallas sweeps run in f32 only; without the
         # f64-operator PCG polish the f32-truncated solve IS the final
         # answer — the documented-catastrophic regime for ill-conditioned
         # composites (eps_f32 * cond > 1, 70x-wrong tip deflections)
@@ -437,7 +433,7 @@ def implicit_solve_bt_jit(residual_fn: Callable, jac_blocks_fn: Callable,
         Rc = constrain_residual(residual_fn(u, p), u, free, bc_values)
         # "__bt_dest__" in the inputs dict passes the template's (large)
         # destination map as a traced argument instead of an embedded
-        # constant (remote-compile size limit at reference scale)
+        # constant (program size at reference scale)
         dest = p.get("__bt_dest__") if isinstance(p, dict) else None
         mat = template.matrix(jac_blocks_fn(u, p), dest=dest)
         M, _ = _precond(mat)

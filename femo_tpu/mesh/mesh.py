@@ -1,6 +1,6 @@
 """Device-friendly mesh representation and topology derivation.
 
-TPU-native replacement for the dolfinx C++ mesh core (SURVEY.md N2): the mesh
+JAX replacement for the dolfinx C++ mesh core (SURVEY.md N2): the mesh
 is plain arrays — vertex coordinates plus cell->vertex connectivity — with
 derived topology (edges, facets, facet->cell incidence) computed once
 host-side in numpy and reused by dofmap construction and facet assembly.

@@ -385,8 +385,9 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
     gradient from the same two transpose solves, so the iteration cost is
     independent of the dv count.
 
-    Device-resident benchmark path: both implicit solves use dense LU on the
-    MXU with fixed Newton/load-step counts; the whole objective+adjoint is
+    Device-resident benchmark path: both implicit solves use dense LU (or
+    the block-Thomas factorization) on the device with fixed Newton/load-
+    step counts; the whole objective+adjoint is
     one jitted function (the reference's per-iteration cost to beat is
     7 SNES solves x (FFCx assembly + MUMPS LU) + 2 MUMPS transpose solves,
     BASELINE.md).
@@ -440,7 +441,7 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
     dv0_basis = jnp.asarray(dv0_np)
     if design_space == "edge_deltas":
         to_bc, n_dv, _, iface_dofs = edge_delta_design_space(mesh, Vmm)
-        # host-side: an eager device matmul here is a remote round trip
+        # host-side: an eager device matmul here compiles a program
         dv0 = jnp.asarray((np.asarray(basis) @ dv0_np)[iface_dofs])
     elif design_space == "basis":
         to_bc = lambda dv: basis @ dv
@@ -508,11 +509,11 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
         from ...ops.block_tridiag import BlockTridiagTemplate
 
         # pattern-only proto: the eager matrix() here ran hundreds of tiny
-        # device ops — each a remote round trip at TPU build time
+        # device ops at build time
         proto_mm = mm_cf.matrix_pattern("uhat")
         # block_size: larger blocks shorten the sequential scan chains
-        # (nb ~ n/B) at O(B^2)-per-step cost — the latency/throughput
-        # trade measured in experiments/motor_stage_latency.py
+        # (nb ~ n/B) at O(B^2)-per-step cost — a latency/throughput
+        # trade
         tpl_mm = BlockTridiagTemplate(proto_mm, free=free_mm,
                                       block=block_size)
         bt_info["mm"] = dict(nb=tpl_mm.nb, B=tpl_mm.B, bw=tpl_mm.bw)

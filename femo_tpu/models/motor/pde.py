@@ -2,7 +2,7 @@
 hyperelastic mesh motion with Nitsche interface BCs, and B-power outputs.
 
 Behavior parity with /root/reference/examples/em_motor_opt/motor_pde.py,
-re-designed TPU-first: instead of one UFL term per subdomain (216 separate
+re-designed for batched device execution: instead of one UFL term per subdomain (216 separate
 ``dx(i)`` measures, motor_pde.py:99-106), a SINGLE fused cell kernel gathers
 per-cell material properties from tag-indexed tables (steel B-H curve,
 magnet remanence vectors, winding current densities) — one vmapped kernel

@@ -6,30 +6,46 @@ greedy cell coloring, and sort-based facet extraction.  Pure-numpy fallbacks
 keep everything working if the toolchain is unavailable.
 
 The library is built on demand with g++ (no pip deps) and cached next to
-this file.
+this file under a name keyed by the source and the host, so a library
+copied from another machine or an older source is rebuilt, never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
 _DIR = os.path.dirname(__file__)
-_SO = os.path.join(_DIR, "libfemo_native.so")
 _SRC = os.path.join(_DIR, "femo_native.cpp")
+
+
+def _so_path():
+    with open(_SRC, "rb") as fh:
+        key = hashlib.sha256(fh.read())
+    key.update("|".join(platform.uname()).encode())
+    return os.path.join(_DIR, f"libfemo_native.{key.hexdigest()[:16]}.so")
+
+
+_SO = _so_path()
 
 _lib = None
 _build_failed = False
 
 
 def _build() -> bool:
+    # build to a private name, then rename: concurrent processes (test
+    # workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _SO],
+            ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except Exception:
         return False
@@ -42,8 +58,7 @@ def get_lib():
         return _lib
     if _build_failed:
         return None
-    if not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+    if not os.path.exists(_SO):
         if not _build():
             _build_failed = True
             return None

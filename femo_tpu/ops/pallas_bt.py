@@ -1,4 +1,4 @@
-"""Pallas TPU kernels for the block-Thomas triangular sweeps.
+"""Block-Thomas triangular sweeps as Pallas kernels for the GPU (Triton route).
 
 The solve phase of the block-tridiagonal factorization (ops/block_tridiag
 .py `BlockThomasFactor.solve`) is two length-nb sequential recurrences of
@@ -7,31 +7,23 @@ The solve phase of the block-tridiagonal factorization (ops/block_tridiag
     fwd:  z_i = Sinv_i (b_i - L_i z_{i-1})
     bwd:  x_i = z_i - C_i x_{i+1}
 
-Here each sweep is ONE Pallas kernel: the TPU grid is executed
-sequentially, so the carry row lives in a VMEM scratch that persists
-across grid steps while the BlockSpec pipeline double-buffers the next
-Sinv/L/C block from HBM during the current step's matvecs — per-step
-cost approaches the 64 KB block-stream bandwidth bound.
+As a `lax.scan`, XLA runs every step as its own few kernels plus the
+loop's control, so the sweep pays a fixed per-step cost nb times over.
+Here each sweep is ONE single-program kernel with the nb loop inside
+(`lax.fori_loop`): the carry row stays in registers and each step only
+streams its (B,B) blocks from device memory.  Blocks of a GPU grid run
+in parallel and in no order, so nothing may be carried between programs;
+the loop lives inside the one program instead.
 
-Measured on one TPU v5e chip (f32, B=128):
-  - standalone (one dispatch per solve): 2.3x over the dispatched scan
-    sweeps at nb=58 and nb=877 (838 us vs 1.9 ms, 1.5 ms vs 3.5 ms).
-  - fused inside the jitted motor opt step (sweeps="pallas" on
-    build_motor_jit_step), where the scan pays no dispatch: a consistent
-    but small 2-3% end-to-end win at refine 0.5/1/2 with bit-identical
-    f32 loss (refine<=1) and gradient deltas inside the known f32
-    spread (4e-5 .. 2.6e-3) — the sweeps are not the dominant cost of
-    the fused step.  Opt-in via sweeps="pallas"; the scan remains the
-    default.
+A (1,B)@(B,B) product is below the tensor cores' tile, so the matvec is a
+broadcast-multiply-sum in f32 FMA — the arithmetic of a float32 product
+at Precision.HIGHEST, never TF32.  f32 only: callers cast the factor and
+the right-hand side (the f64 paths keep the scan sweeps).
 
-f32 only (Mosaic has no f64; the f64 path keeps the lax.scan sweeps).
-No gathers, aligned (B is a multiple of 128 lanes) — this kernel runs on
-real hardware, unlike the documented-infeasible ELL SpMV
-(experiments/pallas_spmv.py).  The matvecs run at Precision.HIGHEST (full-f32
-MXU passes): the sweeps are latency-bound so the extra passes are free,
-making the kernel strictly more accurate than the default-precision
-scan (solo-sweep agreement vs an f64 oracle is then limited by the f32
-factor itself, 1.3e-3 before the PCG polish that production applies).
+B <= 128 only: one (128,128) f32 tile is 64 KB, which 8 warps hold in
+registers.  One program streaming larger blocks is bound by one SM's
+bandwidth, and a row-chunked variant lost to the scan sweeps on the card
+at B=256 and B=512 (PERF.md), so larger blocks keep the scan.
 
 Replaces: the reference's MUMPS triangular solve phase
 (femo/fea/utils_dolfinx.py:476-512 solveKSP_mumps) at the
@@ -45,73 +37,58 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
-_contract_last = (((1,), (1,)), ((), ()))  # row @ M^T
-
-# full-f32 MXU passes: the sweeps are latency-bound (one (B,B) block per
-# sequential grid step), so the extra passes over single-pass bf16 are
-# free — the kernel is strictly MORE accurate than the default-precision
-# scan sweeps it replaces
-_dot = partial(jax.lax.dot_general, dimension_numbers=_contract_last,
-               preferred_element_type=jnp.float32,
-               precision=jax.lax.Precision.HIGHEST)
+MAX_B = 128
 
 
-def _fwd_kernel(b_ref, L_ref, Sinv_ref, z_ref, zcar):
-    # row refs are (1, 1, B): Mosaic requires the last two block dims to
-    # be (8k, 128k) or equal to the array dims, so rows ride a (nb, 1, B)
-    # layout whose trailing (1, B) block IS the full trailing extent.
-    i = pl.program_id(0)
+def _fwd_kernel(b_ref, L_ref, Sinv_ref, z_ref):
+    nb, B = b_ref.shape
 
-    @pl.when(i == 0)
-    def _():
-        zcar[:] = jnp.zeros_like(zcar)
+    def body(i, z):
+        t = b_ref[i, :] - jnp.sum(L_ref[i, :, :] * z[None, :], axis=1)
+        z = jnp.sum(Sinv_ref[i, :, :] * t[None, :], axis=1)
+        z_ref[i, :] = z
+        return z
 
-    t = b_ref[0] - _dot(zcar[:], L_ref[0])
-    z = _dot(t, Sinv_ref[0])
-    z_ref[0] = z
-    zcar[:] = z
+    jax.lax.fori_loop(0, nb, body, jnp.zeros((B,), jnp.float32))
 
 
-def _bwd_kernel(z_ref, C_ref, x_ref, xcar):
-    i = pl.program_id(0)
+def _bwd_kernel(z_ref, C_ref, x_ref):
+    nb, B = z_ref.shape
 
-    @pl.when(i == 0)
-    def _():
-        xcar[:] = jnp.zeros_like(xcar)
+    def body(k, x):
+        i = nb - 1 - k
+        x = z_ref[i, :] - jnp.sum(C_ref[i, :, :] * x[None, :], axis=1)
+        x_ref[i, :] = x
+        return x
 
-    x = z_ref[0] - _dot(xcar[:], C_ref[0])
-    x_ref[0] = x
-    xcar[:] = x
+    jax.lax.fori_loop(0, nb, body, jnp.zeros((B,), jnp.float32))
 
 
 @partial(jax.jit, static_argnames=("interpret",))
 def bt_sweep_solve(Sinv, L, C, bb, interpret: bool = False):
-    """Both triangular sweeps as Pallas kernels.
+    """Both triangular sweeps as Pallas-Triton kernels.
 
-    Sinv/L/C: (nb, B, B) f32;  bb: (nb, B) f32 (RCM-block layout).
-    Returns x blocks (nb, B) f32.  Bit-for-bit this matches the scan
-    sweeps up to f32 contraction order (MXU accumulates in f32).
+    Sinv/L/C: (nb, B, B);  bb: (nb, B) (RCM-block layout), all cast to
+    f32.  Returns x blocks (nb, B) f32 — the scan sweeps' result up to f32
+    summation order.  B must be a power of two (Triton's tensor shapes)
+    and at most MAX_B; interpret=True runs the kernels in the Pallas
+    interpreter (tests).
     """
     nb, B = bb.shape
-    bb3 = bb.reshape(nb, 1, B)
-    row = pl.BlockSpec((1, 1, B), lambda i: (i, 0, 0))
-    rrow = pl.BlockSpec((1, 1, B), lambda i: (nb - 1 - i, 0, 0))
-    blk = pl.BlockSpec((1, B, B), lambda i: (i, 0, 0))
-    rblk = pl.BlockSpec((1, B, B), lambda i: (nb - 1 - i, 0, 0))
-    from jax.experimental.pallas import tpu as pltpu
-
-    scratch = [pltpu.VMEM((1, B), jnp.float32)]
-    z = pl.pallas_call(
-        _fwd_kernel, grid=(nb,),
-        in_specs=[row, blk, blk], out_specs=row,
-        out_shape=jax.ShapeDtypeStruct((nb, 1, B), jnp.float32),
-        scratch_shapes=scratch, interpret=interpret,
-    )(bb3, L, Sinv)
-    x = pl.pallas_call(
-        _bwd_kernel, grid=(nb,),
-        in_specs=[rrow, rblk], out_specs=rrow,
-        out_shape=jax.ShapeDtypeStruct((nb, 1, B), jnp.float32),
-        scratch_shapes=scratch, interpret=interpret,
-    )(z, C)
-    return x.reshape(nb, B)
+    if B & (B - 1) or B > MAX_B:
+        raise ValueError(f"block size B={B} is not a power of two <= "
+                         f"{MAX_B}; use the scan sweeps")
+    f32 = jnp.float32
+    call = partial(
+        pl.pallas_call,
+        out_shape=jax.ShapeDtypeStruct((nb, B), f32),
+        backend="triton",
+        # 8 warps: 64 registers a thread for one (128,128) f32 tile; 4 and
+        # 16 warps measured within 20% on the card (PERF.md)
+        compiler_params=pl_triton.CompilerParams(num_warps=8, num_stages=1),
+        interpret=interpret)
+    z = call(_fwd_kernel, name="bt_fwd_sweep")(
+        bb.astype(f32), L.astype(f32), Sinv.astype(f32))
+    return call(_bwd_kernel, name="bt_bwd_sweep")(z, C.astype(f32))

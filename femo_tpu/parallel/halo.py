@@ -11,9 +11,9 @@ boundary — and reproduces both directions of PETSc's `ghostUpdate`
   reverse  (ADD):    ghost partial sums -> owner slots   after scatters
 
 Both are `jax.lax.all_to_all` exchanges of precomputed, padded send lists —
-communication is O(partition boundary), not O(n), riding ICI inside
-shard_map.  Krylov dot products are psum-reduced partial dots over owned
-dofs.  Cell ownership comes from the native RCB partitioner, so partition
+communication is O(partition boundary), not O(n), over the device
+interconnect inside shard_map.  Krylov dot products are psum-reduced
+partial dots over owned dofs.  Cell ownership comes from the native RCB partitioner, so partition
 boundaries are spatially small.
 """
 

@@ -340,7 +340,6 @@ def _halo_shell_core(mesh, shell, state, device_mesh, cg_rtol, cg_maxiter,
             # f32 factor store: preconditioner quality only — CG runs on
             # the f64 operator (the mixed-precision pattern from the FSI
             # direct path)
-            from ..ops.block_tridiag import _inv_blocks
 
             destb = dev["dest_bj"][0]
             diagb, diagw = dev["diag_bj"][0], dev["diagw_bj"][0]
@@ -374,7 +373,7 @@ def _halo_shell_core(mesh, shell, state, device_mesh, cg_rtol, cg_maxiter,
             def fstep(C_prev, blocks):
                 D_i, L_i, U_i = blocks
                 S = D_i - L_i @ C_prev
-                Sinv = _inv_blocks(S, True)
+                Sinv = jnp.linalg.inv(S)
                 C = Sinv @ U_i
                 return C, (Sinv, C)
 
@@ -410,8 +409,9 @@ def _halo_shell_core(mesh, shell, state, device_mesh, cg_rtol, cg_maxiter,
                 return jnp.where(fl > 0.5, x, r)
         elif cheby_degree > 0:
             # Chebyshev polynomial of the Jacobi-scaled operator as the
-            # CG preconditioner (SURVEY "hard part" #1: the TPU-friendly
-            # family — no triangular sweeps, no reductions in the apply).
+            # CG preconditioner (SURVEY "hard part" #1: the accelerator-
+            # friendly family — no triangular sweeps, no reductions in the
+            # apply).
             # Each degree costs one halo matvec but removes ~degree-fold
             # CG iterations and with them the per-iteration psum dots.
             # Distributed power iteration for lam_max of D^{-1} A (the

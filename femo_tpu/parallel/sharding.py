@@ -1,6 +1,6 @@
-"""SPMD mesh-partitioned assembly over a TPU device mesh.
+"""SPMD mesh-partitioned assembly over a device mesh.
 
-TPU-native replacement for MPI domain decomposition (SURVEY.md §2.4, N7):
+JAX replacement for MPI domain decomposition (SURVEY.md §2.4, N7):
 the reference relies on dolfinx/PETSc rank-owned mesh partitions with
 `ghostUpdate` scatters and `comm.allreduce`
 (/root/reference/femo/fea/utils_dolfinx.py:167,200,236,271).  Here, *cells*

@@ -1,6 +1,6 @@
 """Device-resident Krylov solvers (lax.while_loop, jit/vmap/shard-friendly).
 
-TPU-native replacement for PETSc KSP (SURVEY.md N5; reference
+JAX replacement for PETSc KSP (SURVEY.md N5; reference
 solveKSP/solveKSP_mumps at /root/reference/femo/fea/utils_dolfinx.py:451-512).
 Dot products are plain jnp reductions on one device; under shard_map the same
 code runs SPMD with `psum`-reduced dots (see femo_tpu/parallel/).

@@ -6,10 +6,9 @@ MUMPS direct factorization (SURVEY.md N5, "hard part" #1).
 
 Three factorization backends behind one interface:
 
-* ``dense``  — densify the element matrix and LU-factor on device.  On TPU a
-  dense LU of a few-thousand-dof system runs on the MXU and is *faster* than
-  a sparse direct solve on CPU; this is the MUMPS replacement for small/medium
-  problems (beams, shells, coarse meshes).
+* ``dense``  — densify the element matrix and LU-factor on device: the
+  MUMPS replacement for small/medium problems (beams, shells, coarse
+  meshes).
 * ``cg`` / ``bicgstab`` / ``gmres`` — device Krylov with Jacobi or block-
   Jacobi preconditioning, for large problems.
 * ``scipy`` — host sparse LU (robust fallback; not differentiable, used only
@@ -164,14 +163,14 @@ class LinearSolver:
         if method == "scipy":
             return ScipyLUFactorization(emat, free)
         if method == "block_thomas":
-            # RCM + block-tridiagonal Thomas direct solve (O(n B^2),
-            # MXU scans) — the scalable structured direct option
+            # RCM + block-tridiagonal Thomas direct solve (O(n B^2)
+            # block scans) — the scalable structured direct option
             from ..ops.block_tridiag import BlockTridiagFactorization
 
             return BlockTridiagFactorization(emat, free)
         if method.endswith("_bt"):
             # Krylov preconditioned by the block-Thomas factor (the f32
-            # TPU pattern: rough structured factor + few Krylov iters)
+            # pattern: rough structured factor + few Krylov iters)
             from ..ops.block_tridiag import BlockTridiagFactorization
 
             bt = BlockTridiagFactorization(emat, free)

@@ -1,6 +1,6 @@
 """Preconditioners for device Krylov solvers.
 
-SURVEY.md "hard part" #1 notes Chebyshev/Jacobi as the TPU-friendly
+SURVEY.md "hard part" #1 notes Chebyshev/Jacobi as the accelerator-friendly
 preconditioning family (no sequential triangular solves, no dot products in
 the application — pure fused matvecs).  The block-Thomas structured factor
 (ops/block_tridiag.py) covers the direct/strong end; Chebyshev covers the

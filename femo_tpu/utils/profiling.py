@@ -4,7 +4,7 @@ Parity with the reference's tracing subsystem (SURVEY.md §5): cProfile
 decorator dumping per-process stats
 (run_aeroelasticity_static_w_feedback.py:34-50) and stage timers around
 solves (utils_dolfinx.py:320-333) — plus JAX-native additions: device-sync
-timers and jax.profiler trace capture for TPU timelines.
+timers and jax.profiler trace capture for device timelines.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ class Timer:
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture a jax.profiler trace (TensorBoard-viewable TPU timeline)."""
+    """Capture a jax.profiler trace (TensorBoard-viewable device timeline)."""
     import jax
 
     jax.profiler.start_trace(logdir)

@@ -4,7 +4,7 @@ setup(
     name="femo_tpu",
     version="0.1.0",
     description=(
-        "TPU-native differentiable finite-element framework for "
+        "Differentiable finite-element framework in JAX for "
         "PDE-constrained optimization (JAX/XLA/Pallas)"
     ),
     packages=find_packages(exclude=["tests", "examples"]),

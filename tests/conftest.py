@@ -1,8 +1,10 @@
 """Test configuration: force an 8-device virtual CPU mesh before JAX
 backends initialize, and enable x64.
 
-This is the TPU analogue of "multi-node testing without a cluster"
+This is the analogue of "multi-node testing without a cluster"
 (SURVEY.md §4): sharding/collective tests run SPMD over 8 host devices.
+Tests marked `gpu` take the `gpu` fixture, which skips them when JAX
+finds no GPU.
 """
 
 import os
@@ -35,3 +37,17 @@ def devices8():
     devs = jax.devices()
     assert len(devs) >= 8, f"expected 8 virtual devices, got {len(devs)}"
     return devs[:8]
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU, or a skip: decided when the test runs, never at
+    import or collection time."""
+    try:
+        devs = jax.devices("gpu")
+    except RuntimeError:
+        devs = []
+    if not devs:
+        pytest.skip("needs an NVIDIA GPU (python chip_smoke.py runs these "
+                    "checks on the card)")
+    return devs[0]

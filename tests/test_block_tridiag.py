@@ -1,5 +1,5 @@
-"""Block-tridiagonal MXU operator + block-Thomas direct solver (the
-scalable TPU MUMPS replacement, SURVEY.md N5)."""
+"""Block-tridiagonal operator + block-Thomas direct solver (the
+scalable MUMPS replacement, SURVEY.md N5)."""
 
 import numpy as np
 import pytest
@@ -437,9 +437,8 @@ def test_factor_guard_rescues_singular_f32_block():
 
 def test_factor_mixed_ns_matches_f64():
     """Mixed-precision block inverses (mixed_ns>0): f32 Cholesky-inverse
-    seed + f64 Newton-Schulz refinements, Schur chain in f64 (the
-    TPU-f64 factor speed lever — measured 8.7 of the 8.9 ms per-B=128
-    step is chol/tri emulation while f64 matmuls ride the MXU).  The
+    seed + f64 Newton-Schulz refinements, Schur chain in f64 (f64 work
+    as matmuls only).  The
     mixed factor must (a) match the exact-f64 factor's direct solve to
     near-f64 accuracy on ill-conditioned SPD blocks inside the f32-seed
     range, and (b) rescue a block whose f32 seed cannot converge
@@ -599,9 +598,8 @@ def test_bt_jit_freeze_operator_matches_at_convergence():
     to the same root, so value and IFT gradient match the every-iteration
     path; intermediate-iterate paths differ, so parity is asserted at
     convergence only (the motor uses the fixed-count band argument).
-    Motivation: the refine=1 motor step is ASSEMBLY-dominated
-    (experiments/motor_stage_latency.jsonl — mm fill 3.7 ms x 7 of the
-    89 ms step), so skipping reuse-iteration fills is the latency lever."""
+    Skipping reuse-iteration fills is the latency lever where the
+    Jacobian fill dominates a step."""
     import jax
     from femo_tpu.config import config
     from femo_tpu.fea import (FunctionSpace as FS, Function as Fn, FormDef,

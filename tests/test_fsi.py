@@ -336,12 +336,18 @@ def test_fsi_jit_step_aitken_accelerates():
         np.asarray(out_gp["grad_thickness"]), rtol=1e-6)
 
 
-def test_fsi_jit_step_pallas_sweeps_match_scan():
-    """sweeps="pallas" (VMEM-carry Pallas triangular sweeps in the
-    preconditioner role, interpret mode off-TPU) must converge to the
-    same coupled solution as the scan sweeps: the f64-operator PCG
+def test_fsi_jit_step_pallas_sweeps_match_scan(monkeypatch):
+    """sweeps="pallas" (Pallas-Triton triangular sweeps in the
+    preconditioner role, here in the Pallas interpreter) must converge to
+    the same coupled solution as the scan sweeps: the f64-operator PCG
     polish makes the preconditioner precision immaterial."""
     from femo_tpu.models.fsi import build_fsi_jit_step
+    from femo_tpu.ops.block_tridiag import BlockThomasFactor
+
+    solve_pallas = BlockThomasFactor.solve_pallas
+    monkeypatch.setattr(
+        BlockThomasFactor, "solve_pallas",
+        lambda self, b: solve_pallas(self, b, interpret=True))
 
     kw = dict(n_shell=(4, 6), n_vlm=(2, 4), span=4.0, chord=1.0,
               factor_store_dtype="float32", pcg_iters=4, gs_inner=10,
@@ -479,9 +485,8 @@ def test_dynamic_fsi_trajectory_gradient_matches_unrolled():
 def test_fsi_jit_step_cr_factor_matches_thomas():
     """factor_method='cr' (block cyclic reduction, the latency-optimal
     choice for the anchor's B=128 / nb~7k regime where the Thomas factor
-    scan is dependency-bound and faults the remote TPU runtime past ~4k
-    blocks) must reproduce the Thomas path: forward tip and coupled
-    gradient, in f64 and with the f32 level store + PCG polish."""
+    scan is dependency-bound) must reproduce the Thomas path: forward tip
+    and coupled gradient, in f64 and with the f32 level store + PCG polish."""
     from femo_tpu.models.fsi import build_fsi_jit_step
 
     kw = dict(n_shell=(8, 12), n_vlm=(2, 4), thickness=0.01, gs_inner=4,
@@ -531,11 +536,9 @@ def test_fsi_jit_adjoint_compliance_objective():
 @pytest.mark.slow
 def test_fsi_factor_compute_f32_matches_f64_at_anchor_thickness():
     """factor_compute_dtype="float32" (r4 anchor speed lever): the whole
-    factor recursion + sweeps run f32 on the Jacobi-EQUILIBRATED operator
-    — on TPU the f64 recursion is software-emulated (8.9 ms/block-step,
-    64.7 s of the 343 s anchor opt iteration).  At anchor thickness
-    (t=0.05) with pcg8 polish on the f64 operator, J and the full
-    thickness gradient match the f64-factor run to ~1e-8.  (At t=0.01
+    factor recursion + sweeps run f32 on the Jacobi-EQUILIBRATED operator.
+    At anchor thickness (t=0.05) with pcg8 polish on the f64 operator, J
+    and the full thickness gradient match the f64-factor run to ~1e-8.  (At t=0.01
     the thin-shell equilibrated cond 6.6e7 makes even the equilibrated
     f32 factor plateau at ~1e-2 — that rung keeps the f64 recursion.)"""
     from femo_tpu.models.fsi import build_fsi_jit_step

@@ -109,8 +109,8 @@ def test_halo_cg_at_scale(devices8):
 
 @pytest.mark.slow
 def test_shell_bt_scale_proxy(devices8):
-    """Coarser-proxy correctness test backing the SCALE.json shell row
-    (VERDICT r1 item 3): block-Thomas forward+adjoint at ~24k composite
+    """Coarser-proxy correctness test backing bench_scale.py's shell
+    row: block-Thomas forward+adjoint at ~24k composite
     dofs matches the dense device solve at the f64 conditioning floor."""
     from femo_tpu.models.shell import build_shell_jit_step
 

@@ -104,7 +104,7 @@ def test_motor_step_on_imported_mesh_matches_procedural(imported):
     assert np.isfinite(lu) and lu > 0
     # same physics, different discretizations of the same geometry: the
     # coarse refine=0.5 meshes agree to ~15% (measured 14.7%; shrinks
-    # with refinement — see SCALE.json motor_msh rows)
+    # with refinement — bench_scale.py's motor_msh rows)
     assert abs(lu - lp) / abs(lp) < 0.25
     # 2-dof basis gradient: same space on both meshes -> comparable
     gu, gp = np.asarray(gu), np.asarray(gp)

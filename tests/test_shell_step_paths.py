@@ -25,8 +25,8 @@ def baseline():
     (dict(jacobi_scale=True, pcg_iters=2), 1e-7),
     (dict(solve_mode="jit_dense"), 1e-7),
     # mixed-precision block inverses (f32 seed + f64 Newton-Schulz,
-    # chain in f64 on the equilibrated operator): the TPU-f64 factor
-    # speed lever; near-f64 accurate, so tighter than the f32 store
+    # chain in f64 on the raw operator): near-f64 accurate, so tighter
+    # than the f32 store
     (dict(split_programs=True, pcg_iters=4,
           factor_compute_dtype="mixed",
           factor_store_dtype="float32"), 1e-4),
